@@ -1,6 +1,6 @@
-"""fhe_study_tpu — a TPU-native FHE primitive library (JAX/XLA/Pallas).
+"""fhe_study_tpu — an FHE primitive library in JAX (XLA plus one CUDA kernel).
 
-A from-scratch, TPU-first reimplementation of the capabilities of the
+A from-scratch, accelerator-first reimplementation of the capabilities of the
 arnaucube/fhe-study reference workspace (BFV, CKKS, TFHE over a generalized
 GLWE layer, on top of negacyclic polynomial-ring arithmetic with NTT).
 
@@ -9,8 +9,8 @@ Design principles (vs the single-threaded Rust reference):
   * all randomness is explicit (threefry keys), no global RNG
   * static scheme parameters are hashable frozen dataclasses → jit cache keys
   * the hot compute path (NTT, gadget contractions, external products) is
-    expressed as vectorized XLA ops / Pallas kernels, never Python loops over
-    coefficients
+    expressed as vectorized XLA ops (and, on the GPU, one fused NTT kernel),
+    never Python loops over coefficients
   * scale-out is jax.sharding over a Mesh (batch / limb / coefficient axes),
     not threads
 

@@ -11,7 +11,7 @@ coefficient arrays:
 Elements are stacked along axis -2 for GLWE masks: a mask is [..., k, n].
 `contract(x, y)` — sum_k x_k * y_k (the TR·TR dot product of tuple_ring.rs:117)
 is THE hot op: both rings implement it as one fused transform/pointwise/
-reduce/inverse-transform pipeline (MXU/VPU-shaped, no per-element loops).
+reduce/inverse-transform pipeline (batched array ops, no per-element loops).
 """
 
 from dataclasses import dataclass

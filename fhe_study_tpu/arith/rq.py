@@ -151,7 +151,7 @@ def to_r(a):
 
 def matrix_vec_product(m, v, q: int):
     """[..., r, c] x [..., c] -> [..., r] over Z_q (sum of mulmods — the
-    reference's matrix_vec_product; MXU-unfriendly u64, so mul+reduce)."""
+    reference's matrix_vec_product; u64 has no matrix unit, so mul+reduce)."""
     prod = modops.mulmod(m, v[..., None, :], q)       # each < q < 2^32
     return modops.coerce_u64(jnp.sum(prod, axis=-1), q)
 

@@ -9,7 +9,7 @@ Two product paths, both exact mod 2^64:
   * `naive_mul`: wrapping outer-product schoolbook, O(n^2) — wrapping u64
     products/sums ARE the low 64 bits of the exact integer convolution.
   * `mul` (default for n >= 64): 16-bit limb split + 2-prime CRT NTT,
-    O(n log n) — the TPU path.  Limb convolutions are exact (< 2^48 for
+    O(n log n) — the fast path.  Limb convolutions are exact (< 2^48 for
     n <= 2^14) and recombined with wrapping shifts.
 """
 

@@ -3,7 +3,7 @@
 The reference BFV (bfv/src/lib.rs) works over one small modulus with i128
 schoolbook arithmetic and a p·q relinearization; it cannot reach production
 ring sizes (its own tests stop at n=16, and q=2^16+1 runs out of noise budget
-beyond n≈32).  This module is the TPU-native design the headline benchmark
+beyond n≈32).  This module is the design the headline benchmark
 needs: ciphertext modulus Q = prod(q_i) of ~30-bit NTT primes, all arithmetic
 residue-wise (u64 exact), tensor scaling via HPS-style fast base extension
 with floating-point sign correction (eprint 2018/117's technique), and
@@ -12,7 +12,7 @@ RNS-gadget relinearization (no p·q extension).
 Residue layout: every polynomial is [L, ..., N] u64 with the LIMB axis
 leading — the natural `ep` sharding axis, and the leading axis of the
 MULTI-PRIME NTT (`ops/ntt.py::ntt_multi`), which runs all primes through one
-fused stage chain (small HLO graphs, big VPU ops).
+transform (small HLO graphs, one kernel launch per transform on the GPU).
 
 Divergences from the reference (documented, production-motivated):
   * scaling uses floor instead of round-half-away (≤1 ulp noise at Q≈2^240)
@@ -131,31 +131,25 @@ def fast_base_extend(x, src: tuple, dst: tuple, centered: bool = False):
         ±1 — one unit of additive noise, absorbed by the noise budget.
 
     Accepts u64 or u32 residues; returns the INPUT dtype (the y products run
-    in u32 Montgomery either way — u64 lanes are emulated on TPU)."""
+    in u32 Montgomery either way)."""
     from ..ops import modops32
-    from ..ops.ntt import _pallas_ok
-    if all(_pallas_ok(q, 128) for q in src + dst):
-        # single kernel: mont ys + fixed-point alpha + contraction, one
-        # HBM read of x and one write of the result (ops/ext_pallas)
-        from ..ops import ext_pallas
-        return ext_pallas.base_extend_fused(x, src, dst, centered=centered
-                                            ).astype(x.dtype)
     b = _basis(src)
     tab, smod = _ext_table(src, dst)
     sv32, snq32, _ = (jnp.asarray(c) for c in modops32.consts(src, x.ndim))
     x32 = x.astype(jnp.uint32)
     him = jnp.asarray(_hat_inv_mont(src)).reshape(sv32.shape)
     ys = modops32.mont_mul(x32, him, sv32, snq32)              # [Ls, ..., n]
-    # α = floor/round(Σ y_i/s_i) in 2^59 FIXED POINT (f64 is software-
-    # emulated on TPU): t_i = y_i·⌊2^59/s_i⌋ ≤ 2^59, Σ ≤ Ls·2^59 < 2^64;
-    # truncation error ≤ Ls·2^-28 — far inside the exactness margins
-    # documented above (centered: 1/16; unsigned: the harmless ±S slip).
+    # α = floor/round(Σ y_i/s_i) in 2^59 FIXED POINT (integer, so the
+    # result does not depend on float rounding): t_i = y_i·⌊2^59/s_i⌋
+    # ≤ 2^59, Σ ≤ Ls·2^59 < 2^64; truncation error ≤ Ls·2^-28 — far
+    # inside the exactness margins documented above (centered: 1/16;
+    # unsigned: the harmless ±S slip).
     cfix = jnp.asarray(np.array([(1 << 59) // p for p in src], np.uint64)
                        ).reshape(sv32.shape)
     tsum = jnp.sum(ys.astype(jnp.uint64) * cfix, axis=0)       # [..., n]
     half = jnp.uint64(1 << 58) if centered else jnp.uint64(0)
     alpha = ((tsum + half) >> jnp.uint64(59)).astype(jnp.uint32)
-    # XLA fallback (CPU): out_j = Σ_i (y_i · tab[i,j]) − α·S (mod d_j).
+    # out_j = Σ_i (y_i · tab[i,j]) − α·S (mod d_j).
     # Accumulate in pairs of raw u64 products (2·2^62 < 2^64) with one
     # Barrett per pair — avoids the full [Ls, Ld, ...] product tensor.
     ys = ys.astype(jnp.uint64)
@@ -210,8 +204,8 @@ class CT(NamedTuple):
 # -- keys -------------------------------------------------------------------
 
 def _lift(c: CT) -> CT:
-    """CTs may carry u32 components (relinearize's fused kernel emits its
-    native dtype); lift to u64 for the generic vector-mod helpers."""
+    """CTs may carry u32 components (the eval-domain helpers compute in
+    u32); lift to u64 for the generic vector-mod helpers."""
     return CT(c.c0.astype(U64), c.c1.astype(U64))
 
 
@@ -343,91 +337,74 @@ def mul_pt(param: RnsParam, x: CT, m) -> CT:
 
 # -- multiplication ---------------------------------------------------------
 
-def _tensor(param: RnsParam, x: CT, y: CT):
-    """Degree-2 product over basis Q∪P, then floor(t·v/Q) mapped back to Q."""
-    qs, ps = param.qs, param.ps
-    both = qs + ps
-    # capacity: |t·v| < t·n·Q^2 must fit in QP/2, and |r| < t·n·Q in P/2
-    q_bits = sum(math.log2(q) for q in qs)
-    p_bits = sum(math.log2(p) for p in ps)
+def _check_capacity(param: RnsParam):
+    """|t·v| < t·n·Q^2 must fit in QP/2, and |r| < t·n·Q in P/2."""
+    q_bits = sum(math.log2(q) for q in param.qs)
+    p_bits = sum(math.log2(p) for p in param.ps)
     need_p = math.log2(param.t) + math.log2(param.n) + q_bits + 2
     assert p_bits > need_p and param.t <= (1 << 22), \
         f"P basis too small: {p_bits:.0f} bits, need > {need_p:.0f}"
-    # 1. extend all four polys to the P basis; transform once per prime.
-    # The eval-domain section runs in u32 Montgomery (ops/modops32): XLA
-    # emulates u64 lanes in 32-bit pairs on TPU (~10x cost), and the Pallas/
-    # MXU transforms preserve the u32 dtype end-to-end.
+
+
+def _scale_round(param: RnsParam, w_q, w_p):
+    """w = t·v over Q and P (u32) -> r = floor(t·v/Q) over Q, as the three
+    [L, ..., n] u32 components.
+
+    [w]_Q is the UNSIGNED remainder (w − [w]_Q = Q·floor(w/Q), exact for
+    signed w too) -> extend with the [0,Q) interpretation and divide by Q
+    over P; r is signed & small -> centered extension back to Q.  All in
+    u32 Montgomery (constants pre-lifted host-side)."""
     from ..ops import modops32
-    # the whole transform pipeline (extension prologue where needed -> 4
-    # fwd NTT -> 3 pointwise products -> 3 INTT, t scaling folded into the
-    # epilogue) is ONE fused kernel per basis: w = t*v comes out directly,
-    # four separate operand inputs (no host-side stack copy), and the
-    # P-basis kernel extends Q->P in its prologue (the extended operands
-    # never touch HBM).  The Q and P limb groups stay SPLIT end-to-end — a
-    # fused [L+M, ...] layout would cost two full-array concat copies.
-    ops4 = (x.c0, x.c1, y.c0, y.c1)
-    dall_parts = [
-        ntt.tensor_mul4(*ops4, qs, scale=(param.t,) * len(qs)),
-        ntt.tensor_mul4(*ops4, ps, scale=(param.t,) * len(ps), src=qs)]
-    # 2. r = floor(t·v/Q): [w]_Q is the UNSIGNED remainder (w − [w]_Q =
-    # Q·floor(w/Q), exact for signed w too) -> extend with the [0,Q)
-    # interpretation; r is signed & small -> centered extension back to Q.
-    # All in u32 Montgomery (constants pre-lifted host-side).
+    qs, ps = param.qs, param.ps
     Q = _basis(qs).prod
-    qinv = tuple(pow(Q, -1, p) for p in ps)
-    # w = t*v came out of the INTTs directly (scale folding above)
-    w_q, w_p = dall_parts
-    from ..ops.ntt import _pallas_ok
-    if all(_pallas_ok(q, 128) for q in both):
-        # extension + (w_p − ·)·Q^{-1} epilogue in ONE kernel pass
-        from ..ops import ext_pallas
-        r_p = ext_pallas.base_extend_fused(w_q, qs, ps, w=w_p,
-                                           sub_mul=qinv)
-    else:
-        mont = lambda v, q: (int(v % q) << 32) % q  # noqa: E731
-        qinvm = jnp.asarray(np.array([mont(v, p) for v, p in
-                                      zip(qinv, ps)], np.uint32))
-        nd = dall_parts[0].ndim
-        pv32, nq32p, _ = (jnp.asarray(c) for c in modops32.consts(ps, nd))
-        wq_in_p = fast_base_extend(w_q, qs, ps)
-        r_p = modops32.mont_mul(modops32.submod(w_p, wq_in_p, pv32),
-                                qinvm.reshape(pv32.shape), pv32, nq32p)
+    qinvm = np.array([(pow(Q, -1, p) << 32) % p for p in ps], np.uint32)
+    pv32, nq32p, _ = (jnp.asarray(c) for c in modops32.consts(ps, w_q.ndim))
+    wq_in_p = fast_base_extend(w_q, qs, ps)
+    r_p = modops32.mont_mul(modops32.submod(w_p, wq_in_p, pv32),
+                            jnp.asarray(qinvm).reshape(pv32.shape),
+                            pv32, nq32p)
     out3 = fast_base_extend(r_p, ps, qs, centered=True)
     return [out3[..., i, :] for i in range(3)]
+
+
+def _tensor(param: RnsParam, x: CT, y: CT):
+    """Degree-2 product over basis Q∪P, then floor(t·v/Q) mapped back to Q.
+    The Q and P limb groups stay split end-to-end (a joint [L+M, ...]
+    layout would cost two full-array concat copies)."""
+    _check_capacity(param)
+    qs, ps = param.qs, param.ps
+    ops4 = (x.c0, x.c1, y.c0, y.c1)
+    # w = t·v comes out of the inverse transforms directly (scale folding);
+    # the P half extends the operands Q -> P first
+    w_q = ntt.tensor_mul4(*ops4, qs, scale=(param.t,) * len(qs))
+    w_p = ntt.tensor_mul4(*ops4, ps, scale=(param.t,) * len(ps), src=qs)
+    return _scale_round(param, w_q, w_p)
 
 
 def relinearize(param: RnsParam, rlk: RLK, c0, c1, c2) -> CT:
     """RNS-gadget relin: digits are c2's own limb residues (broadcast to all
     primes), contracted against the key rows in the NTT domain.
 
-    Accepts u64 or u32 inputs (tensor outputs are u32; key_switch passes
-    u64 ciphertext components).  Returns the kernel's native u32 CT on the
-    TPU path — every CT consumer lifts dtypes on entry, and keeping the
-    chain in u32 skips a full-array widening pass per multiply."""
+    Accepts u64 or u32 inputs; returns a CT of c0's dtype."""
     qs = param.qs
-    L = param.L
-    # digits are c2's own limb residues reduced mod each prime — digit
-    # grid + forward NTTs + key contraction + inverse NTTs run as one
-    # fused kernel (ops/ntt.ks_fused_multi); the final (c0+acc0, c1+acc1)
-    # adds stay OUTSIDE the kernel: the in-kernel add-epilogue variant
-    # measured ~100x slower end-to-end on v5e and was deleted this round
-    # (BENCH.md "relin add-epilogue post-mortem"); L is a static sanity pin
-    assert c2.shape[0] == L
+    assert c2.shape[0] == param.L
     acc0, acc1 = ntt.ks_fused_multi(c2, rlk.b, rlk.a, qs, qs)
     qv = _qvec(qs, acc0.ndim)
     r0 = _addmod_v(c0.astype(U64), acc0.astype(U64), qv)
     r1 = _addmod_v(c1.astype(U64), acc1.astype(U64), qv)
-    return CT(r0, r1)
+    return CT(r0.astype(c0.dtype), r1.astype(c0.dtype))
 
 
 def mul(param: RnsParam, rlk, x: CT, y: CT) -> CT:
     """ct x ct multiply; rlk selects the relinearization: RLK = RNS gadget
     (L digit rows), HRLK = 1-row hybrid P-extension (fewer transforms,
-    see relinearize_hybrid)."""
+    see relinearize_hybrid).  Returns a CT of x's dtype."""
     c0, c1, c2 = _tensor(param, x, y)
     if isinstance(rlk, HRLK):
-        return relinearize_hybrid(param, rlk, c0, c1, c2)
-    return relinearize(param, rlk, c0, c1, c2)
+        out = relinearize_hybrid(param, rlk, c0, c1, c2)
+    else:
+        out = relinearize(param, rlk, c0, c1, c2)
+    return CT(out.c0.astype(x.c0.dtype), out.c1.astype(x.c0.dtype))
 
 
 # -- eval-resident ciphertexts ------------------------------------------------
@@ -437,7 +414,7 @@ def mul(param: RnsParam, rlk, x: CT, y: CT) -> CT:
 # RNS bases between homomorphic ops, so a multiply pays zero forward
 # transforms and zero operand extensions — per ct-mul the transform count
 # drops from 4L+4M+L^2 fwd + 3L+3M+2L inv (=87 at L=4, M=5) to
-# L^2+2L+2M fwd + 3L+3M+2L inv (=69), all inside fused kernels.
+# L^2+2L+2M fwd + 3L+3M+2L inv (=69).
 
 class CTE(NamedTuple):
     """Eval-domain resident ciphertext: canonical NTT-domain residues over
@@ -450,7 +427,7 @@ class CTE(NamedTuple):
 
 def to_evals(param: RnsParam, c: CT) -> CTE:
     """CT (coeff domain over Q) -> CTE: forward NTT over Q, then the
-    unsigned HPS extension + forward NTT over P (fused)."""
+    unsigned HPS extension + forward NTT over P."""
     qs, ps = param.qs, param.ps
     c = _lift(c)
     x2 = jnp.stack([c.c0, c.c1], axis=-2)          # [L, ..., 2, n]
@@ -484,8 +461,8 @@ def add_e(param: RnsParam, x: CTE, y: CTE) -> CTE:
 def pt_to_evals(param: RnsParam, m):
     """Plaintext -> Montgomery-domain NTT residues over BOTH bases (Q and
     P) — SEAL's "plaintext in NTT form": precompute once per plaintext
-    operand, then every mul_pt_e is one in-VMEM Montgomery product per
-    component with ZERO transforms.  (The coefficient-domain mul_pt pays
+    operand, then every mul_pt_e is one Montgomery product per component
+    with ZERO transforms.  (The coefficient-domain mul_pt pays
     5 transforms per call; linear pipelines — encrypted linear layers,
     masks, constants — reuse the same plaintext across many ciphertexts.)"""
     qs, ps = param.qs, param.ps
@@ -517,37 +494,15 @@ def mul_e(param: RnsParam, rlk: RLK, x: CTE, y: CTE) -> CTE:
     mul(from_evals(x), from_evals(y)) — same products, same HPS scaling,
     same gadget relin — with every transform that the eval residency makes
     redundant removed."""
+    _check_capacity(param)
     qs, ps = param.qs, param.ps
-    q_bits = sum(math.log2(q) for q in qs)
-    p_bits = sum(math.log2(p) for p in ps)
-    need_p = math.log2(param.t) + math.log2(param.n) + q_bits + 2
-    assert p_bits > need_p and param.t <= (1 << 22), \
-        f"P basis too small: {p_bits:.0f} bits, need > {need_p:.0f}"
     # 1. degree-2 products in the resident eval domain; INTTs fold t·
     w_q = ntt.tensor_eval4(x.e0q, x.e1q, y.e0q, y.e1q, qs,
                            scale=(param.t,) * len(qs))
     w_p = ntt.tensor_eval4(x.e0p, x.e1p, y.e0p, y.e1p, ps,
                            scale=(param.t,) * len(ps))
     # 2. r = floor(t·v/Q) over P, then centered extension back to Q
-    Q = _basis(qs).prod
-    qinv = tuple(pow(Q, -1, p) for p in ps)
-    from ..ops.ntt import _pallas_ok
-    if all(_pallas_ok(q, param.n) for q in qs + ps):
-        from ..ops import ext_pallas
-        r_p = ext_pallas.base_extend_fused(w_q, qs, ps, w=w_p, sub_mul=qinv)
-    else:
-        from ..ops import modops32
-        mont = lambda v, q: (int(v % q) << 32) % q  # noqa: E731
-        qinvm = jnp.asarray(np.array([mont(v, p) for v, p in
-                                      zip(qinv, ps)], np.uint32))
-        nd = w_q.ndim
-        pv32, nq32p, _ = (jnp.asarray(c) for c in modops32.consts(ps, nd))
-        wq_in_p = fast_base_extend(w_q, qs, ps)
-        r_p = modops32.mont_mul(modops32.submod(w_p.astype(jnp.uint32),
-                                                wq_in_p, pv32),
-                                qinvm.reshape(pv32.shape), pv32, nq32p)
-    out3 = fast_base_extend(r_p, ps, qs, centered=True)
-    c0, c1, c2 = (out3[..., i, :] for i in range(3))
+    c0, c1, c2 = _scale_round(param, w_q, w_p)
     if isinstance(rlk, HRLK):
         # 3'. 1-row hybrid relin (L+K digit transforms instead of L^2):
         # coeff-domain result, then re-enter BOTH eval bases
@@ -560,7 +515,7 @@ def mul_e(param: RnsParam, rlk: RLK, x: CTE, y: CTE) -> CTE:
     # 3. gadget relin emitting the result in BOTH domains (eval Q + coeff Q)
     e0q, e1q, r0, r1 = ntt.ks_fused_eval(c2, rlk.b, rlk.a, qs, qs,
                                          adds=(c0, c1))
-    # 4. re-enter the P basis: extend + forward NTT (fused)
+    # 4. re-enter the P basis: extend + forward NTT
     ep = ntt.ext_ntt(jnp.stack([r0, r1], axis=-2), qs, ps)
     return CTE(e0q, e1q, ep[..., 0, :], ep[..., 1, :])
 
@@ -629,15 +584,12 @@ def _hybrid_rlk1_impl(key, param: RnsParam, s_evals, K: int = 2) -> HRLK:
 def relinearize_hybrid(param: RnsParam, hk: HRLK, c0, c1, c2):
     """(c0 + round(P^-1 * c2 * hk.b), c1 + round(P^-1 * c2 * hk.a)) — the
     1-row hybrid relin.  c2: [L, ..., n] residues over Q (any dtype);
-    returns a u32 CT over Q (consumers lift, same contract as relinearize).
+    returns a CT over Q of c0's dtype (the same contract as relinearize).
 
     The P-division round(acc/P) = (acc_Q − centered-ext(acc_P)) · P^{-1}
-    runs as ONE fused extension kernel per output (the centered + sub_mul
-    epilogue of ext_pallas.base_extend_fused); nothing here touches
-    emulated-u64 XLA lanes."""
+    runs in u32 Montgomery."""
     from . import hybrid_ks as H
     from ..ops import modops32
-    from ..ops.ntt import _pallas_ok
     qs = param.qs
     L = param.L
     K = hk.b.shape[0] - L
@@ -654,27 +606,16 @@ def relinearize_hybrid(param: RnsParam, hk: HRLK, c0, c1, c2):
                                        both)
     acc0 = acc0.astype(jnp.uint32)
     acc1 = acc1.astype(jnp.uint32)
-    pinv = tuple(pow(P, -1, q) for q in qs)
-    if all(_pallas_ok(q, param.n) for q in both):
-        from ..ops import ext_pallas
-        ks0 = ext_pallas.base_extend_fused(acc0[L:], ks, qs, centered=True,
-                                           w=acc0[:L], sub_mul=pinv)
-        ks1 = ext_pallas.base_extend_fused(acc1[L:], ks, qs, centered=True,
-                                           w=acc1[:L], sub_mul=pinv)
-    else:
-        qv32, nq32, _ = (jnp.asarray(c)
-                         for c in modops32.consts(qs, acc0.ndim - 0))
-        pinvm = jnp.asarray(np.array([(v << 32) % q for v, q in
-                                      zip(pinv, qs)], np.uint32)
-                            ).reshape(qv32.shape)
-        def div(acc):
-            frac = fast_base_extend(acc[L:], ks, qs, centered=True)
-            return modops32.mont_mul(modops32.submod(acc[:L], frac, qv32),
-                                     pinvm, qv32, nq32)
-        ks0, ks1 = div(acc0), div(acc1)
-    qv32a, _, _ = (jnp.asarray(c) for c in modops32.consts(qs, ks0.ndim))
-    return CT(modops32.addmod(c0.astype(jnp.uint32), ks0, qv32a),
-              modops32.addmod(c1.astype(jnp.uint32), ks1, qv32a))
+    qv32, nq32, _ = (jnp.asarray(c) for c in modops32.consts(qs, acc0.ndim))
+    pinvm = jnp.asarray(np.array([(pow(P, -1, q) << 32) % q for q in qs],
+                                 np.uint32)).reshape(qv32.shape)
+
+    def add_div(c, acc):
+        frac = fast_base_extend(acc[L:], ks, qs, centered=True)
+        r = modops32.mont_mul(modops32.submod(acc[:L], frac, qv32),
+                              pinvm, qv32, nq32)
+        return modops32.addmod(c.astype(jnp.uint32), r, qv32).astype(c0.dtype)
+    return CT(add_div(c0, acc0), add_div(c1, acc1))
 
 
 def ksk_key(key, param: RnsParam, sk_old: SecretKey, sk_new: SecretKey,

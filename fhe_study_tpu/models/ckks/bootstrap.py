@@ -116,7 +116,7 @@ def freeze(keys: BootstrapKeys):
     the host-side plan metadata.  Call AFTER one eager bootstrap() has
     populated the caches; rehydrate per-trace with FrozenKeys(arrays,
     static) — this is how the whole bootstrap becomes ONE jitted function
-    with no giant closure constants (remote-compile 413 guard)."""
+    with no giant closure constants."""
     arrays = {
         "rlk": dict(keys.rlks()),
         "rot": dict(keys.rotkeys().keys),
@@ -390,7 +390,7 @@ def _c2s_ms_stage(param_boot, keys, s, c1, c2, L_cur, K, r, delta_w,
 
 def _stage_raise_c2s_multi(param_boot, keys, ct_l1, K, r, delta_w,
                            base_limbs: int, stages: int):
-    """Radix-split ModRaise + C2S (VERDICT r4 #3): `stages` sparse
+    """Radix-split ModRaise + C2S: `stages` sparse
     butterfly-group plans instead of ONE dense plan — per-stage diagonal
     material shrinks from O(n/2) rows to O(2^(log(n/2)/stages)) rows, at
     the cost of (stages-1)*pt_levels extra levels.  Two parallel chains
@@ -693,8 +693,8 @@ def make_staged(param_boot, static, delta0: float, K: int = 7, r: int = 3,
                 outs[1][0].c0, outs[1][0].c1)
 
     # multi-stage: ONE JIT PER TRANSFORM STAGE — the bundled raise+C2S
-    # graph at n=2^12 serializes to ~90 MB MLIR and the environment's
-    # remote-compile helper OOMs on it; per-stage graphs stay small
+    # graph at n=2^12 serializes to ~90 MB MLIR; per-stage graphs stay
+    # small and compile quickly
     def f1_ms(s):
         L_cur = param_boot.L - s * pt_levels
 

@@ -1,6 +1,6 @@
 """RNS-CKKS: approximate arithmetic over a multi-prime modulus Q = prod(q_i).
 
-The limb-partitioned CKKS pipeline of BASELINE config 4: encode on-device
+The limb-partitioned CKKS pipeline (the ckks bench cell): encode on-device
 (split-complex FFT, encoder_device.py), encrypt/add residue-wise over L
 ~30-bit NTT primes (the leading limb axis shards over the `ep` mesh axis),
 decrypt via HPS float accumulation, decode back through the FFT.
@@ -224,7 +224,7 @@ def mul_hybrid(param: Param, hrlk, x: CT, y: CT):
     with L-1 limbs and scale delta^2 / q_last."""
     from .. import hybrid_ks
     qs = param.qs
-    d = tensor_mul4(x.c0, x.c1, y.c0, y.c1, qs)  # one fused kernel (ops/ntt)
+    d = tensor_mul4(x.c0, x.c1, y.c0, y.c1, qs)
     d0, d1, d2 = d[..., 0, :], d[..., 1, :], d[..., 2, :]
     sw = hybrid_ks.hybrid_key_switch(
         param, hrlk, CT(d0.astype(U64), d2.astype(U64)))
@@ -305,7 +305,7 @@ def mul(param: Param, rlk, x: CT, y: CT):
     multiplies mod Q directly and divides by ONE prime."""
     from .. import bfv_rns
     qs = param.qs
-    d = tensor_mul4(x.c0, x.c1, y.c0, y.c1, qs)  # one fused kernel (ops/ntt)
+    d = tensor_mul4(x.c0, x.c1, y.c0, y.c1, qs)
     d0, d1, d2 = d[..., 0, :], d[..., 1, :], d[..., 2, :]
     bp = _bfv_param(param)
     ct = bfv_rns.relinearize(bp, rlk, d0, d1, d2)

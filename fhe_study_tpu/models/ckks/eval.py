@@ -324,8 +324,8 @@ def realize_em(param, m):
     limb count (src_L).
 
     Chunked + jitted: the [L, chunk, n] u64 residue intermediates cap at
-    ~0.7 GB (a whole-plan chunk OOM'd 16 GB HBM at n=2^11, L=39), and one
-    jit per (qs, chunk-shape) keeps remote dispatch off the eager path."""
+    ~0.7 GB (a whole-plan chunk needs over 16 GB at n=2^11, L=39), and one
+    jit per (qs, chunk-shape) keeps the eager path to one dispatch."""
     n = m.shape[-1]
     chunk = max(1, (1 << 21) // n)
     f = _realize_em_jit(param.qs)
@@ -365,8 +365,8 @@ def apply_rmap_plan(param, rk: RotKeys, ct, plan: RmapPlan):
     # (slot order: need_d babies then need_e babies).  The rotated babies of
     # each source run as ONE lax.scan over stacked (perm, galois-map, key)
     # tables — the unrolled loop compiled a full hybrid-KS body PER baby,
-    # and at production n (n1 = ~32 babies) the serialized module blew the
-    # remote-compile relay's request-size limit (HTTP 413, BENCH_r02).
+    # and at production n (n1 = ~32 babies) the serialized module grew past
+    # what compiles in reasonable time.
     babies_d = sorted(plan.need_d)
     babies_e = sorted(plan.need_e)
     slot_of = {(0, j): i for i, j in enumerate(babies_d)}
@@ -506,7 +506,7 @@ def apply_rmap_plan(param, rk: RotKeys, ct, plan: RmapPlan):
 # ---------------------------------------------------------------------------
 # Multi-stage (radix-split) special-FFT factorization — the level-for-memory
 # trade that shrinks C2S/S2C diagonal material from O(m) dense rows to
-# O(2^(log(m)/S)) rows per stage (VERDICT r4 #3; eprint 2018/1073 structure).
+# O(2^(log(m)/S)) rows per stage (eprint 2018/1073 structure).
 #
 # Core identity: slot evaluation is y_t = p(zeta^{5^t mod 2n}) in the
 # 5-orbit coordinates t (slot rotations act as translations of t).  The

@@ -4,7 +4,7 @@ The reference library's homomorphic API stops at add/mul (README.md:62-72);
 it has no automorphism support.  Slot rotations are the standard production
 extension (SEAL / OpenFHE "Galois keys"), and they fall out of machinery this
 framework already has: the automorphism x(X) -> x(X^g) is a static gather
-with a sign mask (TPU-free permutation), and switching the rotated ciphertext
+with a sign mask (a static permutation), and switching the rotated ciphertext
 back to the original key is exactly the RNS-gadget key switch used for
 relinearization (bfv_rns.ksk_key / relinearize).
 

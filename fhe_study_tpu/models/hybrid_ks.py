@@ -108,8 +108,8 @@ def _hybrid_ksk_impl(key, param, s_old_evals, s_new_evals,
     sg = mulmod_v(se_old[None], gv, bv[None], mv[None])
     ee = jnp.moveaxis(ntt_multi(jnp.moveaxis(e, 1, 0), both), 0, 1)
     b = _submod_v(_addmod_v(sg, ee, bv[None]), as_, bv[None])
-    # u32 storage: residues < 2^31 and every consumer (Pallas kernels, the
-    # modops32 fallbacks) computes in u32 — HALVES the rotation-key-set HBM
+    # u32 storage: residues < 2^31 and every consumer (the modops32
+    # products) computes in u32 — HALVES the rotation-key-set HBM
     # footprint, the binding constraint on the CKKS-bootstrap ring size
     return HybridKSK(b=b.astype(jnp.uint32), a=ea.astype(jnp.uint32))
 
@@ -142,7 +142,7 @@ def _expand_a_jit(param, K: int):
 def expand_a(param, ka, K: int = 2):
     """Regenerate a HybridKSK's `a` plane (NTT domain, u32 [L, L+K, n])
     bit-exactly from its PRNG subkey (see seed_of).  Runs on the current
-    default device — expanding on the TPU after uploading only the b
+    default device — expanding on the device after uploading only the b
     planes halves the host->device transfer of a key set."""
     return _expand_a_jit(param, K)(ka)
 
@@ -211,8 +211,7 @@ def hybrid_key_switch(param, hksk: HybridKSK, c) -> "bfv_rns.CT":
     switch.  c may carry batch axes.
 
     Single-shot path: digit reduction + forward NTTs + contraction + INTTs
-    run as ONE fused kernel (ntt.ks_fused_multi) — no materialized digit
-    grid.  (Multi-rotation callers hoist instead: hoist_digits once, then
+    in one call (ntt.ks_fused_multi).  (Multi-rotation callers hoist instead: hoist_digits once, then
     ks_hoisted per rotation.)"""
     from ..ops import ntt as ntt_ops
     K = hksk.b.shape[1] - param.L

@@ -99,8 +99,7 @@ def precompute_btk_evals(param: Param, btk: BootstrappingKey):
 
 def blind_rotation(param: Param, btk: BootstrappingKey, table: GLWE, c: TLWE,
                    beta: int = 2, l: int = 64, mode: str = "standard",
-                   fast: bool = True, btk_evals=None,
-                   fused: bool | None = None) -> GLWE:
+                   fast: bool = True, btk_evals=None) -> GLWE:
     """acc = v·X^{-b'} ; for each key bit j: acc = CMux(btk_j, acc, acc·X^{+a'_j}).
 
     Final rotation ≈ -(b' - Σ a'_j s_j) = -phase(m).  The chain runs as a
@@ -108,11 +107,7 @@ def blind_rotation(param: Param, btk: BootstrappingKey, table: GLWE, c: TLWE,
 
     fast=True (when the CRT bound admits it) pre-transforms the WHOLE
     bootstrapping key to the NTT domain in one batched pass and scans over
-    its eval slices — the production Fourier-domain-BSK layout.
-
-    fused: run the ENTIRE chain as one Pallas kernel (accumulator resident
-    in VMEM, BSK slices streamed) — bit-identical to the scan.  None = auto
-    (TPU only); True forces it (interpret mode off-TPU, for tests)."""
+    its eval slices — the production Fourier-domain-BSK layout."""
     kn, n = param.kn, param.ring.n
     q2 = (2 * n) if mode == "standard" else kn
     if mode == "standard":
@@ -128,30 +123,6 @@ def blind_rotation(param: Param, btk: BootstrappingKey, table: GLWE, c: TLWE,
 
     a_T = jnp.moveaxis(c2.a, -1, 0)                        # [kn, ...batch]
     use_fast = fast and (param.k + 1) * l * n * beta < (1 << 26)
-    if fused is None or fused:
-        from ...ops import blind_rotate_pallas as brp
-        from ...ops.ntt_pallas import _on_tpu
-        ok = use_fast and brp.supported(param, beta, l)
-        if ok and (fused or _on_tpu()):
-            gev = btk_evals if btk_evals is not None else \
-                tggsw_mod.precompute_evals(param, TGGSW(a=btk.btk_a,
-                                                        b=btk.btk_b))
-            batch = c2.b.shape
-            B = 1
-            for d in batch:
-                B *= d
-            # chain length = the ciphertext's mask length (n_lwe < kn in
-            # the keyswitch-first bootstrap_short pipeline)
-            steps = c2.a.shape[-1]
-            shifts = (U64(2 * n) - c2.a.reshape(B, steps).T) % U64(2 * n)
-            a0 = jnp.concatenate([acc0.a.reshape(B, param.k, n),
-                                  acc0.b.reshape(B, 1, n)], axis=1)
-            out = brp.blind_rotate_fused(
-                shifts.astype(jnp.int32), a0, gev.ev1, gev.ev1s,
-                gev.ev2, gev.ev2s, n, w=beta.bit_length() - 1,
-                interpret=(None if fused is None else not _on_tpu()))
-            out = out.reshape(batch + (param.k + 1, n))
-            return GLWE(a=out[..., :param.k, :], b=out[..., param.k, :])
     if use_fast:
         # Fourier-domain BSK: use the precomputed transform when the caller
         # supplies one (btk_evals), else transform here (amortized only over
@@ -227,7 +198,7 @@ def precompute_short_btk_evals(param: Param, sbtk: ShortBootstrappingKey):
 def bootstrap_short(param: Param, sbtk: ShortBootstrappingKey, table: GLWE,
                     c: TLWE, beta: int = 256, l: int = 3,
                     beta_ks: int = 16, l_ks: int = 8,
-                    btk_evals=None, fused: bool | None = None) -> TLWE:
+                    btk_evals=None) -> TLWE:
     """key_switch (kn -> n_lwe) -> blind rotation (n_lwe CMux steps) ->
     sample_extraction.  Input and output both live under s_flat."""
     ksk = tlwe_mod.KSK(a=sbtk.ksk_a, b=sbtk.ksk_b)
@@ -235,8 +206,7 @@ def bootstrap_short(param: Param, sbtk: ShortBootstrappingKey, table: GLWE,
     btk = BootstrappingKey(btk_a=sbtk.btk_a, btk_b=sbtk.btk_b,
                            ksk_a=sbtk.ksk_a, ksk_b=sbtk.ksk_b)
     rotated = blind_rotation(param, btk, table, c_short, beta, l,
-                             mode="standard", btk_evals=btk_evals,
-                             fused=fused)
+                             mode="standard", btk_evals=btk_evals)
     return tglwe_mod.sample_extraction(param, rotated, 0)
 
 
@@ -244,10 +214,10 @@ def bootstrap(param: Param, btk: BootstrappingKey, table: GLWE, c: TLWE,
               beta: int = 2, l: int = 64,
               beta_ks: int = 2, l_ks: int = 64,
               mode: str = "standard", fast: bool = True,
-              btk_evals=None, fused: bool | None = None) -> TLWE:
+              btk_evals=None) -> TLWE:
     """blind rotation -> sample_extraction(0) -> key switch (tlwe.rs:150-161)."""
     rotated = blind_rotation(param, btk, table, c, beta, l, mode, fast=fast,
-                             btk_evals=btk_evals, fused=fused)
+                             btk_evals=btk_evals)
     c_h = tglwe_mod.sample_extraction(param, rotated, 0)
     ksk = tlwe_mod.KSK(a=btk.ksk_a, b=btk.ksk_b)
     return tlwe_mod.key_switch(param.lwe(), beta_ks, l_ks, ksk, c_h)

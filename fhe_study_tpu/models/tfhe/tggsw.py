@@ -176,7 +176,7 @@ def external_product_evals(param: Param, gev: TGGSWEvals, c: GLWE,
     p1_inv_p2 = pow(p1, -1, p2)
     k, n = param.k, param.ring.n
     # conv bound: (K+1)·l·n·beta·2^32 must stay under p1·p2/2 ≈ 2^58.4
-    # (sub-2^30 lazy-gate primes — see ntt.CRT_PRIMES_TFHE)
+    # (see ntt.CRT_PRIMES_TFHE)
     assert (k + 1) * l * n * beta < (1 << 26), "CRT capacity exceeded"
     ab = jnp.concatenate([c.a, c.b[..., None, :]], axis=-2)   # [..., K+1, N]
     d = tn.decompose(ab, beta, l)                             # [l, ..., K+1, N]

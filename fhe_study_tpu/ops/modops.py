@@ -1,8 +1,7 @@
 """Vectorized Z_q arithmetic on uint64 arrays.
 
-TPU-first substrate replacing the reference's scalar ``Zq`` type
-(reference arith/src/zq.rs).  There is no native 64x64->128 multiply on TPU
-(or in XLA), so:
+Vectorized substrate replacing the reference's scalar ``Zq`` type
+(reference arith/src/zq.rs).  XLA has no 64x64->128 multiply, so:
 
   * q < 2^32 (every NTT modulus and every reference test modulus): products of
     canonical representatives fit exactly in u64 -> plain ``(a * b) % q``.

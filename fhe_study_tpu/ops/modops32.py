@@ -1,11 +1,9 @@
-"""u32 Montgomery modular arithmetic in plain XLA (no Pallas needed).
+"""u32 Montgomery modular arithmetic in plain XLA.
 
-Why: XLA emulates 64-bit integer lanes as 32-bit pairs on TPU; a single u64
-Barrett mulmod pass over a [9,64,128,128] array measures ~5 ms on v5e —
-~50x over roofline (scripts/bench_mxu_pieces.py).  The same multiply done
-as u32 Montgomery with 16-bit-limb partial products (the ntt_pallas.py
-in-kernel recipe, but as ordinary jnp ops on u32 arrays) stays on native
-lanes and fuses.
+Why: residues below 2^31 need only 32-bit lanes, half the bytes of the u64
+path in ops/modops.py.  The 32x32 -> 64 product is built from 16-bit-limb
+partial products as ordinary jnp ops on u32 arrays, which XLA fuses into
+the surrounding elementwise work.
 
 Conventions:
   * all arrays u32, canonical values in [0, q), q < 2^31 odd;

@@ -1,31 +1,29 @@
-"""Multi-host execution: jax.distributed init + 2-level (DCN x ICI) meshes.
+"""Multi-process execution: jax.distributed init + 2-level meshes.
 
 The reference has no distributed story at all (single-process Rust; SURVEY
-§2.6 comm row).  The TPU-native design scales in two tiers:
+§2.6 comm row).  The design scales in two tiers:
 
-  * ICI — chips within one host/slice: ep/sp/tp axes; collectives
-    (all_gather / all_to_all / psum) ride the intra-slice interconnect.
-  * DCN — across hosts: the dp (ciphertext batch) axis ONLY.  FHE batches
-    are embarrassingly parallel across hosts — no per-op cross-host
-    collective is ever required, so DCN latency never sits on the hot path.
-    (Keys are replicated; each host holds its batch shard.)
+  * within a process — the devices one process drives (the cards of one
+    host, joined all to all by NVLink): ep/sp/tp axes; collectives
+    (all_gather / all_to_all / psum) stay inside the process.
+  * across processes — the dp (ciphertext batch) axis ONLY.  FHE batches
+    are embarrassingly parallel across processes — no per-op cross-process
+    collective is ever required, so the slower link never sits on the hot
+    path.  (Keys are replicated; each process holds its batch shard.)
 
-Launch recipe (v5e-16 = 4 hosts x 4 chips — the BASELINE.md aggregate
-target):
+Launch recipe (every process, before any computation runs):
 
-    # on every host, before any jax import runs a computation:
     from fhe_study_tpu.parallel import distributed
     distributed.initialize()            # reads JAX_COORDINATOR_ADDRESS,
                                         # JAX_NUM_PROCESSES, JAX_PROCESS_ID
-                                        # (or TPU metadata autodetect)
     mesh = distributed.hybrid_mesh(ici={"ep": 2, "sp": 1, "tp": 2})
-    # -> Mesh (dp=4[DCN], ep=2, sp=1, tp=2), dp spanning the 4 hosts
+    # -> Mesh (dp = processes x rest, ep=2, sp=1, tp=2)
 
 Single-process simulation (CI / 8 virtual CPU devices): the same
 `hybrid_mesh` call with `simulate_hosts=2` factors the local devices into an
-outermost "host" dimension feeding dp, producing a mesh with the exact
-(dcn, ici) axis layout a real multi-host launch gets — the sharded programs
-compile and execute identically (XLA sees the same mesh topology either way).
+outermost process dimension feeding dp, producing a mesh with the exact
+(across, within) axis layout a real multi-process launch gets — the sharded
+programs compile and execute identically.
 """
 
 import os
@@ -38,27 +36,19 @@ from jax.sharding import Mesh
 def initialize(coordinator_address: str | None = None,
                num_processes: int | None = None,
                process_id: int | None = None) -> bool:
-    """Bring up the multi-process JAX runtime (DCN tier).
+    """Bring up the multi-process JAX runtime.
 
     Reads JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES / JAX_PROCESS_ID when
-    args are None; on TPU pods jax.distributed.initialize() autodetects all
-    three from the TPU metadata server, so plain `initialize()` works there
-    too.  Returns True if a multi-process runtime was initialized, False for
-    the single-process no-op (nothing configured — local run)."""
+    args are None.  Returns True if a multi-process runtime was initialized,
+    False for the single-process no-op (no coordinator configured)."""
     coordinator_address = coordinator_address or os.environ.get(
         "JAX_COORDINATOR_ADDRESS")
+    if coordinator_address is None:
+        return False          # single-process run — nothing to initialize
     if num_processes is None and os.environ.get("JAX_NUM_PROCESSES"):
         num_processes = int(os.environ["JAX_NUM_PROCESSES"])
     if process_id is None and os.environ.get("JAX_PROCESS_ID"):
         process_id = int(os.environ["JAX_PROCESS_ID"])
-    if coordinator_address is None:
-        # NB: only probe the backend on the no-coordinator path —
-        # jax.default_backend() initializes XLA, and jax.distributed must
-        # come first when a coordinator IS configured
-        on_tpu_pod = jax.default_backend() == "tpu" and os.environ.get(
-            "TPU_WORKER_HOSTNAMES") is not None
-        if not on_tpu_pod:
-            return False      # single-process run — nothing to initialize
     jax.distributed.initialize(
         coordinator_address=coordinator_address,
         num_processes=num_processes,
@@ -69,17 +59,18 @@ def initialize(coordinator_address: str | None = None,
 def hybrid_mesh(ici: dict[str, int] | None = None,
                 dcn_axis: str = "dp",
                 simulate_hosts: int | None = None) -> Mesh:
-    """Build a (dp, ep, sp, tp) mesh with dp on the DCN (host) tier and the
-    given ici axis sizes within each host.
+    """Build a (dp, ep, sp, tp) mesh with dp spanning processes and the
+    given `ici` axis sizes within each process.
 
-    Real multi-host (jax.process_count() > 1): uses
-    mesh_utils.create_hybrid_device_mesh so the dp axis spans hosts and
-    ep/sp/tp stay within each host's ICI domain — collectives on ep/sp/tp
-    never cross DCN.
+    Real multi-process (jax.process_count() > 1): uses
+    mesh_utils.create_hybrid_device_mesh so the dp axis spans processes
+    and ep/sp/tp stay within each process — collectives on ep/sp/tp never
+    cross processes.
 
     Single-process: factors jax.devices() into
-    (simulate_hosts or 1) x local, with the host factor outermost feeding
-    dp — the simulated-DCN layout used by tests and dryrun_multichip."""
+    (simulate_hosts or 1) x local, with the process factor outermost
+    feeding dp — the simulated layout used by tests and
+    dryrun_multichip."""
     ici = dict(ici or {})
     for ax in ("ep", "sp", "tp"):
         ici.setdefault(ax, 1)
@@ -88,12 +79,11 @@ def hybrid_mesh(ici: dict[str, int] | None = None,
     axis_names = ("dp", "ep", "sp", "tp")
 
     def _ep_spanning(devices, groups):
-        """Device grid with the host/process factor OUTERMOST IN EP —
-        dcn_axis="ep": the RNS limb axis spans the DCN tier, so limb
-        all_gathers (base extension) genuinely cross hosts.  Off the
-        default layout deliberately: used to demonstrate/exercise
-        cross-host collectives beyond all-reduce (SURVEY §2.6 comm row,
-        BASELINE ">= 2 hosts")."""
+        """Device grid with the process factor OUTERMOST IN EP —
+        dcn_axis="ep": the RNS limb axis spans processes, so limb
+        all_gathers (base extension) genuinely cross them.  Off the
+        default layout deliberately: used to exercise cross-process
+        collectives beyond all-reduce (SURVEY §2.6 comm row)."""
         n = len(devices)
         dp = n // (groups * ici_total)
         arr = np.array(devices).reshape(groups, dp, ici["ep"], ici["sp"],
@@ -104,7 +94,7 @@ def hybrid_mesh(ici: dict[str, int] | None = None,
     if jax.process_count() > 1:
         per_host = jax.local_device_count()
         assert per_host % ici_total == 0, \
-            f"host has {per_host} chips, ici axes need {ici_total}"
+            f"process has {per_host} devices, ici axes need {ici_total}"
         devices = sorted(jax.devices(),
                          key=lambda d: (d.process_index, d.id))
         if dcn_axis == "ep":
@@ -118,9 +108,9 @@ def hybrid_mesh(ici: dict[str, int] | None = None,
                             ici["tp"]),
                 dcn_mesh_shape=(jax.process_count(), 1, 1, 1))
         except ValueError:
-            # CPU / mock backends carry no slice_index attribute (mesh_utils
-            # counts 1 slice); group by owning process instead — same
-            # topology: dp outermost spanning the process (DCN) tier
+            # backends without a slice_index attribute (mesh_utils counts
+            # 1 slice): group by owning process instead — same topology,
+            # dp outermost spanning the processes
             devs = np.array(devices).reshape(dp, ici["ep"], ici["sp"],
                                              ici["tp"])
         return Mesh(devs, axis_names=axis_names)
@@ -132,24 +122,6 @@ def hybrid_mesh(ici: dict[str, int] | None = None,
         f"{n} devices don't factor into {hosts} hosts x {ici} ici"
     if dcn_axis == "ep":
         return Mesh(_ep_spanning(devices, hosts), axis_names=axis_names)
-    dp = n // ici_total           # host factor folds into dp (outermost)
+    dp = n // ici_total           # process factor folds into dp
     devs = np.array(devices).reshape(dp, ici["ep"], ici["sp"], ici["tp"])
     return Mesh(devs, axis_names=axis_names)
-
-
-def v5e16_launch_config() -> dict:
-    """The documented BASELINE.md v5e-16 launch shape: 4 hosts x 4 chips.
-
-    dp=8 spans DCN x half of each host's ICI; ep=2 keeps the RNS limb
-    all_gathers inside each host.  Returns the env each host must export
-    plus the mesh call — the code path exercised (simulated) by
-    dryrun_multichip, so bringing this up on real hardware is config only."""
-    return {
-        "env_per_host": {
-            "JAX_COORDINATOR_ADDRESS": "<host0>:8476",
-            "JAX_NUM_PROCESSES": "4",
-            "JAX_PROCESS_ID": "<0..3>",
-        },
-        "mesh": {"ici": {"ep": 2, "tp": 1, "sp": 1}, "dcn_axis": "dp"},
-        "expected_mesh_shape": {"dp": 8, "ep": 2, "sp": 1, "tp": 1},
-    }

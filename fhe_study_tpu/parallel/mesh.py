@@ -1,10 +1,10 @@
 """Device-mesh construction and sharding helpers.
 
-FHE's parallelism axes map onto a TPU mesh as (SURVEY §2.6):
+FHE's parallelism axes map onto a device mesh as (SURVEY §2.6):
   * dp  — ciphertext batch (data parallel; no collectives)
   * ep  — RNS/CRT limb axis (limb-parallel; all_gather at reconstruction)
   * sp  — polynomial coefficient axis (sequence-parallel analog; the
-          four-step NTT exchanges tiles all_to_all over ICI)
+          four-step NTT exchanges tiles all_to_all)
   * tp  — GLWE mask / gadget-level axis (tensor parallel; psum reductions)
 """
 

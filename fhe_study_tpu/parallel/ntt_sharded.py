@@ -7,7 +7,7 @@ decomposition n = n1·n2 —
     negacyclic twist (psi^j, local)
     -> column NTT of size n2 (local, root w^{n1})
     -> twiddle w^{j1·k2} (local)
-    -> tile exchange (lax.all_to_all over ICI)       <- the only comm
+    -> tile exchange (lax.all_to_all)                <- the only comm
     -> row NTT of size n1 (local, root w^{n2})
 
 Pointwise products happen in the transformed (k2-sharded) layout; the inverse

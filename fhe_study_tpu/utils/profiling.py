@@ -3,11 +3,12 @@
 The reference has no tracing/metrics beyond `Instant::now()` prints in one
 test (SURVEY §5).  This module provides:
   * `timed` — block/fn wall timing with device sync
-  * `ntt_roofline` — per-kernel speed-of-light model (butterflies vs HBM)
+  * `ntt_roofline` — per-kernel speed-of-light model (butterflies vs HBM),
+    against the published peaks of `DEVICE_PEAKS`
   * `noise_budget_bits` — the FHE health metric (log2 of remaining headroom),
     generalizing the reference's only probe, `infinity_norm`
     (reference arith/src/ring_nq.rs:347-358)
-  * `trace` — context manager around jax.profiler for TPU timeline capture
+  * `trace` — context manager around jax.profiler for device timeline capture
 """
 
 import contextlib
@@ -44,6 +45,21 @@ def time_fn(fn, *args, iters: int = 10, warmup: int = 2):
     return (time.perf_counter() - t0) / iters
 
 
+# Published peaks per device, keyed by jax's `device_kind`.  A device not
+# in the table is an error, never a default.
+DEVICE_PEAKS = {
+    # NVIDIA H100 SXM data sheet: 80 GB of HBM3 at 3.35 TB/s
+    "NVIDIA H100 80GB HBM3": {"hbm_bytes_per_s": 3.35e12, "hbm_bytes": 80e9},
+}
+
+
+def device_peaks(device_kind: str) -> dict:
+    if device_kind not in DEVICE_PEAKS:
+        raise KeyError(f"no published peaks for device kind {device_kind!r}; "
+                       f"known: {sorted(DEVICE_PEAKS)}")
+    return DEVICE_PEAKS[device_kind]
+
+
 @dataclass
 class Roofline:
     butterflies: int
@@ -55,26 +71,26 @@ class Roofline:
         return self.butterflies / self.secs
 
     @property
-    def hbm_gbps(self):
-        return self.hbm_bytes / self.secs / 1e9
+    def hbm_bytes_per_sec(self):
+        return self.hbm_bytes / self.secs
 
-    def report(self, peak_gbps: float = 819.0):
-        """v5e HBM peak ≈ 819 GB/s; an NTT stage chain is HBM-bound unless
-        stages fuse in VMEM."""
+    def report(self, device_kind: str):
+        """Achieved rates and the HBM share of the device's published peak."""
+        peak = device_peaks(device_kind)["hbm_bytes_per_s"]
         return {
             "butterflies_per_sec": self.butterflies_per_sec,
-            "hbm_gbps": self.hbm_gbps,
-            "hbm_fraction_of_peak": self.hbm_gbps / peak_gbps,
+            "hbm_bytes_per_sec": self.hbm_bytes_per_sec,
+            "hbm_fraction_of_peak": self.hbm_bytes_per_sec / peak,
         }
 
 
-def ntt_roofline(batch: int, n: int, secs: float, dtype_bytes: int = 8):
-    """Model: log2(n) stages × n/2 butterflies; each stage reads+writes the
-    full array once from HBM in the unfused worst case."""
+def ntt_roofline(rows: int, n: int, secs: float, dtype_bytes: int = 4):
+    """Model: log2(n) stages × n/2 butterflies per row; the least traffic a
+    transform needs reads and writes each row once."""
     logn = n.bit_length() - 1
     return Roofline(
-        butterflies=batch * logn * (n // 2),
-        hbm_bytes=batch * logn * 2 * n * dtype_bytes,
+        butterflies=rows * logn * (n // 2),
+        hbm_bytes=rows * 2 * n * dtype_bytes,
         secs=secs,
     )
 

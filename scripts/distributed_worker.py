@@ -6,16 +6,17 @@ Launched twice by the test with JAX_COORDINATOR_ADDRESS / JAX_NUM_PROCESSES
 parallel/distributed.py's module docstring), CPU backend with 4 virtual
 devices per process -> an 8-device global runtime across 2 OS processes.
 
-What it proves (BASELINE.md ">= 2 hosts" row, SURVEY §2.6 comm tier):
+What it proves (SURVEY §2.6 comm tier):
   * distributed.initialize() brings up the coordination service for real
     (jax.process_count() == 2),
   * hybrid_mesh() builds the (dp, ep, sp, tp) mesh over devices owned by
-    TWO processes, dp spanning the DCN tier,
+    TWO processes, dp spanning the processes,
   * a dp-sharded RNS-BFV ct-mul (hybrid relin) compiles and executes SPMD
     across the processes, and each process decrypt-verifies its LOCAL
     batch shards,
   * a replicated-output reduction actually crosses processes (the all-reduce
-    is the DCN collective), checked against the host-computed value.
+    is the cross-process collective), checked against the host-computed
+    value.
 """
 
 import os
@@ -96,10 +97,10 @@ def main():
     print(f"DIST2PROC OK p{pid}", flush=True)
 
     # ---- phase 2: ep SPANNING the process boundary -------------------------
-    # dcn_axis="ep": the RNS limb axis crosses the DCN tier, so the base-
+    # dcn_axis="ep": the RNS limb axis crosses the processes, so the base-
     # extension limb all_gathers inside R.mul are REAL cross-process
-    # collectives (not just the replicated all-reduce above) — the
-    # VERDICT-r3 #6 deliverable.  dp=4 stays within each process.
+    # collectives (not just the replicated all-reduce above).  dp=4 stays
+    # within each process.
     mesh2 = distributed.hybrid_mesh(ici={"ep": 1}, dcn_axis="ep")
     assert mesh2.shape == {"dp": 4, "ep": 2, "sp": 1, "tp": 1}, mesh2.shape
     # every (dp, ep) mesh entry pairs devices from BOTH processes along ep

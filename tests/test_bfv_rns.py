@@ -107,7 +107,7 @@ def test_eval_resident_mul_matches_mul():
     """mul_e on eval-resident ciphertexts is bit-identical to mul, and a
     depth-2 chain (mul_e -> add_e -> mul_e) decrypts correctly without ever
     leaving the NTT domain.  (Small L/n: bit-identity is shape-independent;
-    the bench shape runs on TPU via bench.py's decrypt-verified chain.)"""
+    the bench shape runs on the GPU via bench.py's decrypt-verified chain.)"""
     param = R.RnsParam(n=128, t=4, L=3, M=4)
     ks = prng.split(jax.random.PRNGKey(7), 8)
     B = 2
@@ -249,46 +249,3 @@ def test_base_extend_centered_boundary_exact():
     out = np.asarray(fast_base_extend(x, src, dst, centered=True))
     for j, d in enumerate(dst):
         np.testing.assert_array_equal(out[j], [v % d for v in vals])
-
-
-def test_base_extend_fused_kernel_parity():
-    """ext_pallas.base_extend_fused (interpret mode) == the XLA
-    fast_base_extend path, bit-exact, both interpretations — including the
-    in-kernel u32-limb-pair fixed-point alpha."""
-    from fhe_study_tpu.models.bfv_rns import fast_base_extend
-    from fhe_study_tpu.ops import ext_pallas
-    from fhe_study_tpu.ops.primes import ntt_primes
-    src = ntt_primes(4, 30, 1 << 16)
-    dst = ntt_primes(5, 30, 1 << 16, skip=4)
-    rng = np.random.default_rng(3)
-    x = jnp.stack([jnp.asarray(rng.integers(0, p, (2, 3, 256)), jnp.uint64)
-                   for p in src], 0)
-    for centered in (False, True):
-        want = np.asarray(fast_base_extend(x, src, dst, centered=centered))
-        got = np.asarray(ext_pallas.base_extend_fused(
-            x, src, dst, centered=centered, interpret=True))
-        np.testing.assert_array_equal(got, want.astype(np.uint32))
-
-
-def test_base_extend_sub_mul_epilogue_parity():
-    """base_extend_fused's (w − ext)·c epilogue == the unfused XLA sequence
-    (the BFV t/Q scaling step)."""
-    from fhe_study_tpu.models.bfv_rns import fast_base_extend
-    from fhe_study_tpu.ops import ext_pallas, modops32
-    from fhe_study_tpu.ops.primes import ntt_primes
-    src = ntt_primes(3, 30, 1 << 16)
-    dst = ntt_primes(4, 30, 1 << 16, skip=3)
-    rng = np.random.default_rng(5)
-    x = jnp.stack([jnp.asarray(rng.integers(0, p, (2, 256)), jnp.uint64)
-                   for p in src], 0)
-    w = jnp.stack([jnp.asarray(rng.integers(0, p, (2, 256)), jnp.uint64)
-                   for p in dst], 0)
-    c = tuple(int(v) for v in rng.integers(1, min(dst), len(dst)))
-    ext = fast_base_extend(x, src, dst).astype(jnp.uint64)
-    dv = jnp.asarray(np.array(dst, np.uint64)).reshape(4, 1, 1)
-    want = ((w + dv - ext) % dv *
-            jnp.asarray(np.array(c, np.uint64)).reshape(4, 1, 1)) % dv
-    got = ext_pallas.base_extend_fused(x, src, dst, w=w, sub_mul=c,
-                                       interpret=True)
-    np.testing.assert_array_equal(np.asarray(got),
-                                  np.asarray(want).astype(np.uint32))

@@ -132,78 +132,6 @@ def test_bootstrap_short_lwe():
     np.testing.assert_array_equal(np.asarray(rec2), np.asarray(m))
 
 
-def test_blind_rotation_fused_kernel_parity():
-    """The single-kernel blind rotation (ops/blind_rotate_pallas, interpret
-    mode here) is bit-identical to the lax.scan chain — including the
-    batch-tiled grid (bb_override=2 forces a 2-tile split)."""
-    from fhe_study_tpu.ops import blind_rotate_pallas as brp
-
-    n, t = 128, 8
-    param = Param(ERR_SIGMA, RingParam(TORUS_Q, n), 1, t)
-    k1, k2, k3 = prng.split(jax.random.PRNGKey(7), 3)
-    table = bootstrap.compute_lookup_table_standard(param)
-    s, _ = tglwe.new_key(k1, param)
-    s_flat = tglwe.sk_to_tlwe(s)
-    btk, s_out = bootstrap.new_bootstrapping_key(
-        k2, param, s, beta=256, l=3, beta_ks=16, l_ks=8, s_lwe_out=s_flat)
-    B = 4
-    m = jnp.arange(B, dtype=jnp.uint64) % jnp.uint64(t // 2)
-    c = tlwe.encrypt_uniform(k3, param.lwe(), s_flat, tlwe.encode(param, m),
-                             batch=(B,))
-
-    ref = bootstrap.blind_rotation(param, btk, table, c, beta=256, l=3,
-                                   mode="standard", fused=False)
-    got = bootstrap.blind_rotation(param, btk, table, c, beta=256, l=3,
-                                   mode="standard", fused=True)
-    np.testing.assert_array_equal(np.asarray(ref.a), np.asarray(got.a))
-    np.testing.assert_array_equal(np.asarray(ref.b), np.asarray(got.b))
-
-    # batch-tiled grid: same result when the batch is split across scratch
-    # reloads (exercises the (i, j) grid and per-tile shift indexing)
-    from fhe_study_tpu.models.tfhe import tggsw as tggsw_mod
-    from fhe_study_tpu.models.tfhe.tggsw import TGGSW
-    from fhe_study_tpu.arith import tn
-    gev = tggsw_mod.precompute_evals(param, TGGSW(a=btk.btk_a, b=btk.btk_b))
-    c2 = tlwe.TLWE(a=tn.mod_switch_round(c.a, 2 * n),
-                   b=tn.mod_switch_round(c.b, 2 * n))
-    half = n // param.t
-    acc0 = tglwe.left_rotate(param, table, c2.b + jnp.uint64(half))
-    shifts = ((jnp.uint64(2 * n) - c2.a.reshape(B, n).T) % jnp.uint64(2 * n))
-    a0 = jnp.concatenate([acc0.a.reshape(B, param.k, n),
-                          acc0.b.reshape(B, 1, n)], axis=1)
-    out = brp.blind_rotate_fused(shifts.astype(jnp.int32), a0,
-                                 gev.ev1, gev.ev1s, gev.ev2, gev.ev2s, n, w=8,
-                                 interpret=True, bb_override=2)
-    np.testing.assert_array_equal(
-        np.asarray(ref.a), np.asarray(out[:, :param.k, :]))
-    np.testing.assert_array_equal(
-        np.asarray(ref.b), np.asarray(out[:, param.k, :]))
-
-
-def test_bootstrap_short_fused_parity():
-    """bootstrap_short through the fused kernel == through the scan (the
-    chain length is n_lwe, not param.kn — regression for the steps-vs-kn
-    wiring)."""
-    n, t = 128, 8
-    param = Param(ERR_SIGMA, RingParam(TORUS_Q, n), 1, t)
-    k1, k2, k3 = prng.split(jax.random.PRNGKey(11), 3)
-    table = bootstrap.compute_lookup_table_standard(param)
-    s, _ = tglwe.new_key(k1, param)
-    s_flat = tglwe.sk_to_tlwe(s)
-    sbtk = bootstrap.new_short_bootstrapping_key(
-        k2, param, s, n_lwe=64, beta=256, l=3, beta_ks=16, l_ks=8)
-    B = 2
-    m = jnp.arange(B, dtype=jnp.uint64) % jnp.uint64(t // 2)
-    c = tlwe.encrypt_uniform(k3, param.lwe(), s_flat, tlwe.encode(param, m),
-                             batch=(B,))
-    ref = bootstrap.bootstrap_short(param, sbtk, table, c, beta=256, l=3,
-                                    beta_ks=16, l_ks=8, fused=False)
-    got = bootstrap.bootstrap_short(param, sbtk, table, c, beta=256, l=3,
-                                    beta_ks=16, l_ks=8, fused=True)
-    np.testing.assert_array_equal(np.asarray(ref.a), np.asarray(got.a))
-    np.testing.assert_array_equal(np.asarray(ref.b), np.asarray(got.b))
-
-
 @pytest.mark.slow
 def test_bootstrap_reference_config_t_frontier():
     """The reference's own bootstrap config — N=1024, k=1, t=128

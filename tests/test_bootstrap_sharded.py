@@ -1,6 +1,6 @@
 """Batched TFHE bootstrapping with the ciphertext batch sharded over `dp`
-(BASELINE config 5's single-host shape; the multi-host version is the same
-program over a larger mesh)."""
+(the tfhe bench cell's single-process shape; the multi-process version is
+the same program over a larger mesh)."""
 
 import numpy as np
 import jax

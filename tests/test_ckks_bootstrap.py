@@ -214,8 +214,7 @@ def test_seeded_key_pack_expand_bit_exact():
 
 def test_ckks_bootstrap_multistage_c2s_s2c():
     """Radix-split C2S/S2C (c2s_stages=s2c_stages=2): the per-stage
-    diagonal material shrinks to the butterfly-group bands (VERDICT r4
-    #3) and the refreshed message matches the single-stage pipeline's
+    diagonal material shrinks to the butterfly-group bands and the refreshed message matches the single-stage pipeline's
     accuracy.  The stage factorization itself is pinned numerically in
     test_special_fft_factorization below."""
     n, S = 32, 2

@@ -1,5 +1,5 @@
 """Device-side CKKS encoder + the batched/sharded encode-encrypt-add pipeline
-(BASELINE config 4)."""
+(the ckks bench cell)."""
 
 import numpy as np
 import jax

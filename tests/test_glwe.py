@@ -1,7 +1,7 @@
 """GLWE core tests (reference gfhe/src/glwe.rs + glev.rs tests).
 
 The reference loops 200 serial iterations per property; we run one batched
-shot over a batch axis — same statistical coverage, TPU-shaped.
+shot over a batch axis — same statistical coverage, batched.
 """
 
 import numpy as np

@@ -110,7 +110,7 @@ def test_t64_decompose_roundtrip():
 
 
 def test_t64_decompose_reference_l_lt_64():
-    """Fixed-vector parity with torus.rs:43-52 for l < 64 (VERDICT r1 #9):
+    """Fixed-vector parity with torus.rs:43-52 for l < 64:
     the reference maps x to [(x >> i) & 1 for i in (0..l).rev()] — the LOW
     l bits, slice-MSB first.  Digits computed here with pure Python ints
     emulating the Rust expression exactly."""

@@ -4,6 +4,7 @@ import os
 import tempfile
 
 import numpy as np
+import pytest
 import jax
 import jax.numpy as jnp
 
@@ -35,10 +36,26 @@ def test_rounding_half_away():
 def test_time_fn_and_roofline():
     t = profiling.time_fn(lambda x: x * 2, jnp.ones((64, 64)), iters=2, warmup=1)
     assert t > 0
-    r = profiling.ntt_roofline(batch=8, n=1024, secs=1e-3)
-    rep = r.report()
+    r = profiling.ntt_roofline(rows=8, n=1024, secs=1e-3)
+    rep = r.report("NVIDIA H100 80GB HBM3")
     assert rep["butterflies_per_sec"] == 8 * 10 * 512 / 1e-3
-    assert rep["hbm_gbps"] > 0
+    assert rep["hbm_bytes_per_sec"] == 8 * 2 * 1024 * 4 / 1e-3
+    assert np.isclose(rep["hbm_fraction_of_peak"],
+                      rep["hbm_bytes_per_sec"] / 3.35e12)
+
+
+@pytest.mark.parametrize("kind", ["NVIDIA A100-SXM4-80GB", "cpu", ""])
+def test_device_peaks_unknown_kind_raises(kind):
+    """A device without published peaks is an error, never a default."""
+    with pytest.raises(KeyError, match="no published peaks"):
+        profiling.device_peaks(kind)
+    with pytest.raises(KeyError):
+        profiling.ntt_roofline(rows=1, n=16, secs=1.0).report(kind)
+
+
+def test_device_peaks_h100_from_data_sheet():
+    p = profiling.device_peaks("NVIDIA H100 80GB HBM3")
+    assert p == {"hbm_bytes_per_s": 3.35e12, "hbm_bytes": 80e9}
 
 
 def test_noise_budget_bits_util():
